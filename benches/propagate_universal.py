@@ -7,7 +7,7 @@ the 20-step daily-cadence warm-start chain, and isolated component costs
 (prelim guess, s_funct).
 
 Batched re-interpretation: the reference times one scalar call; production
-on TPU runs many lanes per dispatch, so each scenario reports BOTH warm
+on an accelerator runs many lanes per dispatch, so each scenario reports BOTH warm
 per-dispatch latency at batch 4096 and the implied per-orbit throughput.
 
 Usage: python benches/propagate_universal.py  (prints a table; any backend)

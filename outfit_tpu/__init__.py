@@ -1,7 +1,7 @@
-"""outfit_tpu — TPU-native, batch-first orbit determination and propagation.
+"""outfit_tpu — batch-first orbit determination and propagation on JAX/XLA.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the Rust crate
-``FusRoman/Outfit`` (reference: /root/reference, see SURVEY.md): Gauss initial
+A ground-up JAX/XLA rebuild of the capabilities of the Rust crate
+``FusRoman/Outfit`` (see SURVEY.md): Gauss initial
 orbit determination, differential orbit correction (weighted least squares with
 chi-squared outlier rejection), universal-variable two-body and DOP853 N-body
 propagation with state-transition matrices, JPL ephemerides, IAU-1980 Earth
@@ -20,9 +20,10 @@ double precision, so importing this package enables ``jax_enable_x64``.
 from jax import config as _jax_config
 
 _jax_config.update("jax_enable_x64", True)
-# TPU matmuls on f32 inputs default to bf16 mantissa passes; the mixed-
-# precision IOD path needs true-f32 contractions (they are 3x3 einsums —
-# full precision is free) or the rho solve loses ~5 digits.
+# Default-precision f32 matmuls may run at reduced precision (TF32 on the
+# GPU's tensor cores); the mixed-precision IOD path needs true-f32
+# contractions (they are 3x3 einsums — full precision is free) or the rho
+# solve loses ~5 digits.
 _jax_config.update("jax_default_matmul_precision", "highest")
 
 from outfit_tpu import constants  # noqa: E402,F401

@@ -54,9 +54,8 @@ _COS_C = [
 def _sincos_step(d):
     """sin/cos of a step clamped to |d| <= 1, by Taylor polynomial (Horner).
 
-    ~18 fused mul-adds instead of two emulated-f64 transcendentals — the
-    point of the rotation-Newton scheme below (TPU f64 is software-emulated;
-    sin/cos cost ~50x a multiply there).
+    ~18 fused mul-adds instead of two f64 transcendentals — the point of
+    the rotation-Newton scheme below.
     """
     d2 = d * d
     s = _SIN_C[-1]
@@ -76,12 +75,12 @@ def solve_generalized_kepler(
     """Newton on F - k sin F + h cos F = lambda(t1), x0 = pi + varpi.
 
     Parity: ``solve_kepler_equation`` (equinoctial_element.rs:326-348), with
-    a TPU-native twist: the iteration is **trig-free**.  (sin F, cos F) are
+    a batch-friendly twist: the iteration is **trig-free**.  (sin F, cos F) are
     carried through the loop and advanced by rotating with the Newton step
     (sin/cos of the clamped step come from a degree-17/18 Taylor polynomial,
     exact to < 1e-17 for |step| <= 1), and the cold start x0 = pi + varpi
-    has the closed form (sin, cos)(x0) = (-h/e, -k/e).  The emulated-f64
-    sin/cos therefore never runs.  For e < 1 the equation is strictly
+    has the closed form (sin, cos)(x0) = (-h/e, -k/e).  The f64 sin/cos
+    therefore never runs.  For e < 1 the equation is strictly
     monotone (f' >= 1 - e > 0), so the step-clamped Newton converges
     globally.
 
@@ -96,10 +95,11 @@ def solve_generalized_kepler(
     tol = 100.0 * eps
     # Residual acceptance: |F - k sinF + h cosF - lam| <= 1e-12 rad is
     # ~1 mm on-orbit at a ~ 2.5 AU — three orders below the reference's
-    # 1e-9 propagation contract.  Needed because emulated f64 on TPU
-    # cannot always drive the Newton STEP below 100*eps(f64): the iterate
-    # stalls at rounding level (measured residuals <= 8.5e-14 on the
-    # "unconverged" lanes, identical to the converged distribution), and
+    # 1e-9 propagation contract.  Needed because f64 arithmetic without
+    # exact rounding cannot always drive the Newton STEP below
+    # 100*eps(f64): the iterate stalls at rounding level (residuals
+    # <= 8.5e-14 on the "unconverged" lanes, identical to the converged
+    # distribution), and
     # a step-only criterion would flag converged lanes as garbage — which
     # the inf-gated RMS scoring then turns into NoViableOrbit for ~45 %
     # of trajectories.  No-op on f32 (100*eps_f32 >> 1e-12) and on exact

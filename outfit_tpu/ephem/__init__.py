@@ -2,7 +2,7 @@
 
 Rebuilds the reference's ``src/jpl_ephem/`` (6.9k LoC): the Horizon legacy DE
 binary parser, the NAIF DAF/SPK parser, and the query facade — redesigned
-TPU-first: file parsing is host-side numpy producing flattened, granule-
+batch-first: file parsing is host-side numpy producing flattened, granule-
 uniform coefficient arrays; interpolation is a batched gather + Chebyshev
 dot that jits/vmaps over epochs.  A third, file-free source (``analytic:``)
 builds the same tables from Standish mean elements + a truncated lunar

@@ -154,18 +154,7 @@ class JPLEphem:
 
     # -- queries (batched, jit-compatible) ------------------------------------
 
-    #: route interpolation through the Pallas gather+dot kernel on TPU
-    #: backends.  Default off: the A/B in tools/pallas_ab.py measures the
-    #: per-row-DMA gather against XLA's fused gather+contract; enable with
-    #: $OUTFIT_TPU_PALLAS_EPHEM=1 or `eph.use_pallas = True`.
-    use_pallas = os.environ.get("OUTFIT_TPU_PALLAS_EPHEM") == "1"
-
     def _interp(self, body: Body, mjd_tt, velocity=True):
-        if self.use_pallas:
-            from outfit_tpu.ephem.pallas_kernel import interpolate_body_pallas
-
-            pos, vel = interpolate_body_pallas(self.tables[body], mjd_tt)
-            return pos, (vel if velocity else None)
         return interpolate_body(self.tables[body], mjd_tt, velocity)
 
     def _sun(self, mjd_tt, velocity=True):

@@ -8,7 +8,7 @@ epoch shape, jit/vmap-ready, and trivially shardable over the epoch axis.
 
 Parity: the numerical behavior matches the reference's per-record Chebyshev
 evaluation (``horizon_records.rs:204``, ``ephemeris_record.rs:195``); the
-layout is redesigned for TPU (the reference walks nested
+layout is redesigned for batched device queries (the reference walks nested
 Vec<HashMap<body, Vec<record>>>).
 """
 
@@ -68,7 +68,7 @@ def interpolate_body(table: BodyTable, mjd, velocity: bool = True):
     # loaded from the npz cache are numpy and must be device arrays under jit
     tb, db = _chebyshev_basis(tau, n_coeff)  # (..., n_coeff)
     # multiply + reduce over the (tiny) coefficient axis — einsum would
-    # lower to a padded MXU dot_general (~100x under f64 emulation)
+    # lower to a padded dot_general (see utils.linalg)
     pos = jnp.sum(c * tb[..., None, :], -1)
     if not velocity:
         return pos, None

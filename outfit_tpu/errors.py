@@ -1,7 +1,7 @@
 """Error taxonomy.
 
 Parity: ``OutfitError`` (``src/outfit_errors.rs:145-296``), a single enum of
-~46 variants.  The TPU-native design splits the taxonomy by layer:
+~46 variants.  The batch-first design splits the taxonomy by layer:
 
 * **inside batched kernels** errors are DATA — integer status codes and
   validity masks — so lanes fail independently without aborting the batch

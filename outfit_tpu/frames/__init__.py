@@ -3,7 +3,7 @@
 Rebuilds ``src/earth_orientation.rs`` and ``src/ref_system.rs`` as pure
 jittable, batch-friendly JAX functions.  The nutation series is table-driven
 (106x5 integer multiplier matrix contracted against the fundamental arguments
-— a matmul + trig dot, TPU-idiomatic) rather than the reference's hand-rolled
+— a batched multiply-reduce + trig dot) rather than the reference's hand-rolled
 scalar compound-angle recurrences.
 """
 

@@ -10,7 +10,7 @@ the standard published IAU-1980 table evaluated as
     dpsi  = sum((A + At*t) * sin(arg))
     deps  = sum((B + Bt*t) * cos(arg))
 
-which vectorizes over any batch of epochs and maps onto TPU vector units.
+which vectorizes over any batch of epochs as elementwise device work.
 Amplitudes are in 0.1 milliarcsec (1e-4 arcsec), as published.
 """
 
@@ -177,7 +177,7 @@ def nutn80(tjm):
         [jnp.ones_like(t), t, t * t, t * t * t], axis=-1
     )  # (..., 4)
     # broadcast-multiply + reduce: `@` with contraction dims 4/5 lowers to
-    # padded MXU dot_generals (~100x the VPU cost under f64 emulation)
+    # padded dot_generals (see utils.linalg)
     fund = jnp.sum(tp[..., None, :] * _FUND_POLY, -1) * RADSEC  # (..., 5)
     arg = jnp.sum(fund[..., None, :] * _NUT_MULT, -1)  # (..., 106)
     t_ = t[..., None]

@@ -4,7 +4,7 @@ Rebuilds ``src/ref_system.rs``: ``rotmt`` elementary rotations (:453-462) and
 ``rotpn`` (:379-411), which composes precession / nutation / obliquity
 rotations between any two (system, epoch) pairs.
 
-TPU-native design: frame *tags* (Equm/Equt/Eclm, J2000-or-of-date) are static
+Batch-first design: frame *tags* (Equm/Equt/Eclm, J2000-or-of-date) are static
 Python values, so the chain of elementary steps is resolved at trace time into
 a fixed sequence of matrix products; epochs themselves may be traced arrays,
 so one ``rotpn`` call vectorizes over a whole batch of observation epochs

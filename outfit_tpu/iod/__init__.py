@@ -1,4 +1,4 @@
-"""Gauss initial orbit determination — batched, masked, TPU-first.
+"""Gauss initial orbit determination — batched, masked, batch-first.
 
 Rebuilds ``src/initial_orbit_determination/`` (4.7k LoC) + ``trajectory.rs``:
 triplet generation and scoring, the Gauss degree-8 polynomial pipeline with

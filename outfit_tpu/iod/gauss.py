@@ -131,7 +131,7 @@ def gauss_prelim(tri: GaussTriplets):
 def coeff_eight_poly(tri: GaussTriplets, s_mat, s_inv, a, b):
     """Sparse coefficients (c0, c3, c6).  Parity: gauss.rs:585-614."""
     # broadcast-multiply + sum, not einsum: tiny-dim dot_generals lower to
-    # pathologically padded MXU matmuls (see utils.linalg.matvec_small)
+    # padded matrix-unit products (see utils.linalg.matvec_small)
     ra_vec = jnp.sum(a[..., None] * tri.obs_pos, axis=-2)
     rb_vec = jnp.sum(b[..., None] * tri.obs_pos, axis=-2)
     row1 = s_inv[..., 1, :]  # second row of S^-1
@@ -204,7 +204,7 @@ def _fg_correction(
     # NR-only solver inside the correction loop — parity with the reference,
     # whose velocity_correction uses SolverType::default() = NewtonRaphson
     # with no Brent fallback (velocity.rs:131-138); also keeps the while-loop
-    # body (and TPU compile time) small.  Warm-started chi makes NR reliable,
+    # body (and its compile time) small.  Warm-started chi makes NR reliable,
     # and the universal Kepler residual is monotone (unique root).
     vc_cfg = SolverConfig(convergency=params.kepler_eps, auto_fallback=False)
 
@@ -217,8 +217,8 @@ def _fg_correction(
         # (L, 2K): halves the nested universal-Kepler while-loop count —
         # the loop body is latency-bound, not compute-bound — and the merged
         # loop exits at max(left, right) trips instead of left + right.
-        # (A leading-axis stack (2, L, K) was 5x SLOWER: tiny leading dims
-        # wreck TPU layouts inside while loops; trailing concat is fine.)
+        # (The stack is along the trailing axis: tiny leading dims make
+        # poor layouts inside while loops.)
         K = x1.shape[-2]
         x13 = jnp.concatenate([x1, x3], axis=-2)
         both = velocity_correction(
@@ -374,7 +374,7 @@ def gauss_candidates(
     # the correction/scoring cost at no loss)
     n_keep = min(params.max_tested_solutions, 8)
     # top_k of the negated masked r2 = the n_keep smallest, ascending —
-    # cheaper than a full argsort on TPU
+    # cheaper than a full argsort
     neg_r2, order = jax.lax.top_k(-jnp.where(root_ok, r2, jnp.inf), n_keep)
     r2 = -neg_r2
     root_ok = jnp.take_along_axis(root_ok, order, axis=-1)

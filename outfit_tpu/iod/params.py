@@ -47,11 +47,12 @@ class IODParams:
     newton_max_it: int = 50
     root_imag_eps: float = 1.0e-6
 
-    # --- TPU execution policy (no reference counterpart) ---
-    #: "f64" = everything in float64 (emulated on TPU v5e);
+    # --- device execution policy (no reference counterpart) ---
+    #: "f64" = everything in float64;
     #: "mixed" = f32 root-finding/correction/scoring + f64 polish of the
-    #: per-lane selected candidate — ~8x faster per chip at seed-grade
-    #: accuracy (the LSQ stage always refines in f64 regardless).
+    #: per-lane selected candidate, at seed-grade accuracy (the LSQ stage
+    #: always refines in f64 regardless).  Whether it pays where f64 is
+    #: native is ROADMAP C2.
     precision: str = "f64"
 
     #: f64 correction iterations in the mixed-precision polish pass.
@@ -66,7 +67,7 @@ class IODParams:
     #: already does this; the f64 path adds a winner-only full rescore),
     #: so the REPORTED RMS is always the full-window value.  On real
     #: survey arcs (mean ~76 obs) candidate scoring is a large share of
-    #: the IOD dispatch (~130 ms of ~512 ms, docs/DESIGN.md round 3);
+    #: the IOD dispatch;
     #: subsampling trades it for a possible selection-order deviation on
     #: near-tie candidates (either member of such a tie is an equally
     #: good seed — the LSQ stage refines whichever wins).  Arcs whose
@@ -94,7 +95,7 @@ class IODParams:
             ("solvers", ["aberth_max_iter", "aberth_eps", "kepler_eps",
              "max_tested_solutions", "newton_eps", "newton_max_it",
              "root_imag_eps"]),
-            ("tpu execution", ["precision", "polish_max_it",
+            ("device execution", ["precision", "polish_max_it",
              "selection_subsample"]),
         ]:
             lines.append(f"  # {section}")

@@ -40,9 +40,9 @@ def descartes_upper_bound(c0, c3, c6):
 class ComplexRoots:
     """(re, im) pair container mimicking the complex result surface.
 
-    Complex arithmetic is carried as explicit float64 pairs because the TPU
-    x64-rewriting pipeline does not lower complex128; this also keeps the
-    kernel portable across backends.
+    Complex arithmetic is carried as explicit float64 pairs, which lowers
+    on every backend (whether complex128 is as fast on the GPU is
+    ROADMAP C6).
     """
 
     def __init__(self, re, im):

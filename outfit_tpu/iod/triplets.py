@@ -67,13 +67,13 @@ def triplet_weight32(t1, t2, t3, dtw: float):
     significant digits order the candidates identically except on
     physical near-ties, where either member is an equally good Gauss
     triplet.  Quantizing the ordering to f32 lets the device enumerator
-    run its weight sweep in native f32 instead of emulated f64 (the
-    C(m,3) grid made this the dominant real-cadence IOD cost) and order
+    run its weight sweep in f32 instead of f64 (the C(m,3) grid is the
+    largest real-cadence IOD sweep) and order
     by the int32 BIT PATTERN (monotonic for non-negative floats incl.
     +inf).  Gaps are computed in f64 and rounded once; every subsequent
     op is f32, expression-identical between numpy and XLA (the CPU
-    device==numpy parity property tests pin it; TPU's f32 division is
-    not correctly rounded, so near-ties may order differently there —
+    device==numpy parity property tests pin it; a backend whose f32
+    division is not correctly rounded may order near-ties differently —
     deterministically)."""
     dtw32 = np.float32(dtw)
     inv32 = np.float32(1.0 / dtw)
@@ -106,7 +106,7 @@ def generate_triplet_indices(
     indices.  Fully vectorized (the reference's lazy two-pointer stream +
     bounded heap, index_generator.rs:94-260 / mod.rs:365-408, is a scalar-CPU
     shape; enumerating the <= m^3/6 combinations with numpy and taking a
-    lexicographic best-K is equivalent and ~100x faster from Python).
+    lexicographic best-K is equivalent and far faster from Python).
     """
     n = len(epochs)
     keep = downsample_uniform_with_edges(n, max_obs)
@@ -151,7 +151,7 @@ def generate_triplet_indices_batch(
     ``trips[t, :ktrips[t]]`` are the best-K triplets as local observation
     indices, element-for-element equal to the scalar enumerator (property-
     tested).  This removes the per-trajectory Python loop that dominated
-    host prep at survey scale (~0.35 ms/trajectory, docs/DESIGN.md).
+    host prep at survey scale.
 
     ``budget`` caps the (chunk x combination) working-set size.
     """
@@ -310,18 +310,16 @@ def _enum_device(epochs_pad, counts, *, dt_min, dt_max, dtw, max_obs,
     # triplet_weight32) with argmin's first-minimum rule as the
     # ascending-index tie-break — the same (w32, a, j, k) lex order the
     # numpy enumerators produce with a stable argsort on the bits.  The
-    # f32 weight sweep replaced an emulated-f64 one whose s_gap divisions
-    # made the C(m,3) grid the dominant real-cadence IOD cost (standalone:
-    # 154 ms at (2048, C(100,3)) K=16 in f64), and the argmin passes
-    # compare native int32.  Cross-platform caveat: TPU's f32 division is
-    # not correctly rounded, so physical near-ties (weights within ~1 ulp)
-    # can order differently on TPU than on the CPU/numpy paths; ordering
-    # is deterministic within each platform, and either member of such a
-    # tie is an equally good Gauss triplet.
-    # (Two rejected shapes, both measured: lax.top_k lowers to a full
-    # variadic sort — 942 ms; a block-decomposed top-K with per-row block
-    # repair lowers its row-indexed gathers to serialized TPU general
-    # gathers — 46 s.)
+    # f32 weight sweep replaced an f64 one whose s_gap divisions made the
+    # C(m,3) grid the largest real-cadence IOD sweep, and the argmin
+    # passes compare int32.  Cross-platform caveat: a backend whose f32
+    # division is not correctly rounded can order physical near-ties
+    # (weights within ~1 ulp) differently from the CPU/numpy paths;
+    # ordering is deterministic within each platform, and either member
+    # of such a tie is an equally good Gauss triplet.
+    # (Two rejected shapes: lax.top_k lowers to a full variadic sort, and
+    # a block-decomposed top-K with per-row block repair lowers its
+    # row-indexed gathers to serialized general gathers.)
     dtw32 = np.float32(dtw)
     inv32 = np.float32(1.0 / dtw)
     one32 = np.float32(1.0)

@@ -6,7 +6,7 @@ same (psi, alpha) -> (s0, s1, s2, s3) contract with alpha = -1/a, where
     s2 = psi^2/2 + beta psi^4/4! + ...,   s3 = psi^3/3! + beta psi^5/5! + ...
     s0 = 1 + alpha*s2,  s1 = psi + alpha*s3,  beta = alpha*psi^2.
 
-TPU-native redesign (vs the reference's data-dependent while loops):
+Batch-first redesign (vs the reference's data-dependent while loops):
 
 * The halving count is computed in closed form, ``k = ceil(log4(|beta|/T))``,
   instead of a runtime halving loop (``stumpff.rs:244-261``).
@@ -58,8 +58,7 @@ def s_funct(psi, alpha):
     k = jnp.ceil(0.5 * jnp.log2(safe / _BETA_THRESHOLD)).astype(jnp.int32)
     k = jnp.clip(k, 0, _MAX_HALVINGS)
 
-    # exact 2^-k via table gather (jnp.ldexp's s64 bitcast does not lower
-    # through the TPU x64 rewriter)
+    # exact 2^-k via table gather (no s64 bitcast, as jnp.ldexp needs)
     scale = _POW2NEG[k].astype(dtype)  # powers of two: exact in any float
     psi_r = psi * scale
     beta_r = beta * scale * scale

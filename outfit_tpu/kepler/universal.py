@@ -15,7 +15,7 @@ Behavioral parity with the reference:
 * propagation: ``src/kepler/propagation.rs:114-207`` (Lagrange f-g),
 * velocity correction: ``src/kepler/velocity.rs:94-209``.
 
-TPU-native design: no early exits — every lane runs the same fixed-trip
+Batch-first design: no early exits — every lane runs the same fixed-trip
 loops with convergence masks; failures are status codes, not exceptions.
 """
 

@@ -36,9 +36,12 @@ class DifferentialCorrectionConfig:
     #: "f64" = every Newton iteration in float64 (reference parity);
     #: "mixed" = an f32 pre-warm phase (no outlier decisions, guarded
     #: advances only) runs the orbit to ~1e-3 correction norm at native f32
-    #: rate, then the standard f64 loop finishes from the warmed elements —
-    #: identical final accuracy (the f64 loop owns convergence, outliers,
-    #: and covariance), ~2-3x faster on TPU where f64 is emulated.
+    #: rate, then the f64 loop finishes from the warmed elements with f64
+    #: residuals and f32 Jacobians (it owns convergence, outliers, and
+    #: covariance).  The approximate Jacobian moves that loop's fixed point
+    #: off the f64 optimum: up to ~6e-3 of a formal sigma on noisy 12-obs
+    #: arcs, so mixed elements match f64 to a hundredth of a sigma, not to
+    #: rtol 1e-8.  Whether it pays where f64 is native is ROADMAP C2.
     precision: str = "f64"
 
     #: iteration cap for the f32 pre-warm phase (mixed only).

@@ -84,8 +84,8 @@ def observation_partials(
     ``jacobian_dtype=jnp.float32`` (two-body only) evaluates the predicted
     positions in full precision but the 6x3 element Jacobians in f32 —
     Gauss-Newton converges to the residual-defined fixed point with an
-    approximate Jacobian, and the Jacobian chain is ~85 % of the
-    per-iteration cost under TPU f64 emulation.
+    approximate Jacobian, and the Jacobian chain is most of the
+    per-iteration f64 arithmetic.
     """
     eq = EquinoctialElements(
         epoch[:, None],
@@ -143,9 +143,7 @@ def observation_partials(
 
     # NOTE every contraction below is written as broadcast-multiply + sum,
     # NOT einsum/@: XLA lowers batched tiny-dim dot_generals (contraction 3
-    # or 6) to MXU matmuls, which under f64 emulation cost ~20 ms per call
-    # at (2048, 12) — ~100x the equivalent VPU elementwise+reduce (measured,
-    # tools/body_cost.py).
+    # or 6) to padded matrix-unit products (see utils.linalg).
     rot = jnp.asarray(ROT_ECLMJ2000_TO_EQUMJ2000, jnp.asarray(st_pos).dtype)
     pos = jnp.sum(rot * st_pos[..., None, :], -1)  # (T, N, 3) equ
     vel = jnp.sum(rot * st_vel[..., None, :], -1)
@@ -223,7 +221,7 @@ def single_iteration(
 
     gw_ra = g_ra * w_ra[..., None]
     gw_dec = g_dec * w_dec[..., None]
-    # (T, N, 6, 1) x (T, N, 1, 6) -> sum over N: VPU-only normal matrix
+    # (T, N, 6, 1) x (T, N, 1, 6) -> sum over N: elementwise normal matrix
     normal = jnp.sum(
         gw_ra[..., :, None] * g_ra[..., None, :]
         + gw_dec[..., :, None] * g_dec[..., None, :],
@@ -243,8 +241,8 @@ def single_iteration(
     ).astype(normal.dtype)
     rhs = jnp.where(free, rhs, 0.0)
 
-    # inversion via unrolled Cholesky (utils.linalg) — jnp.linalg.inv does
-    # not lower on TPU x64; the normal matrix is SPD whenever invertible.
+    # inversion via unrolled Cholesky (utils.linalg); the normal matrix is
+    # SPD whenever invertible.
     # The reference's QR fallback (least_square.rs:329-341) is deliberately
     # NOT mirrored: see the utils.linalg module docstring for the measured
     # batch-isolation violation it would introduce.

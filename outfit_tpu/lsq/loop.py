@@ -62,8 +62,8 @@ def _prewarm_f32(elements0, epoch, obs, cfg, selection0, free, ephem):
     advances only (a step is taken only if the inversion succeeded and the
     result is non-bizarre).  No statuses, no outlier decisions — the f64
     main loop owns all contracts; this phase only moves the starting point
-    close to the chi-squared minimum so the (emulated-f64) loop needs 2-3
-    iterations instead of ~10.  Returns (elements_f64, iterations_used)."""
+    close to the chi-squared minimum so the f64 loop needs 2-3 iterations
+    instead of ~10.  Returns (elements_f64, iterations_used)."""
     T = obs.mjd.shape[0]
     obs32 = ObsArrays(
         obs.mjd,  # absolute epochs stay f64 (f32 resolution is ~6 min)
@@ -221,9 +221,11 @@ def run_differential_correction(
         def cond(i: _In):
             return (i.it < cfg.max_newton_iterations) & jnp.any(~i.inner_done)
 
-        # mixed mode: f32 Jacobians inside the f64 loop (residuals stay f64,
-        # so the converged elements are identical; the final full-f64
-        # linearization refresh below restores exact covariance/partials)
+        # mixed mode: f32 Jacobians inside the f64 loop (residuals stay f64;
+        # the approximate Jacobian moves the fixed point off the f64
+        # optimum by up to ~1e-2 of a formal sigma on ill-conditioned arcs;
+        # the final full-f64 linearization refresh below restores exact
+        # covariance/partials)
         jac_dtype = (
             jnp.float32
             if (cfg.precision == "mixed" and not cfg.propagator.nbody)
@@ -318,7 +320,7 @@ def run_differential_correction(
         var_ra = obs.sigma_ra**2
         var_dec = obs.sigma_dec**2
         # broadcast-multiply + sum, NOT einsum: batched 6-dim dot_generals
-        # lower to (emulated-f64) MXU matmuls at ~100x the VPU cost here
+        # lower to padded matrix-unit products (see utils.linalg)
         gca = jnp.sum(cov[:, None] * st.last_dra[..., None, :], -1)
         gcd = jnp.sum(cov[:, None] * st.last_ddec[..., None, :], -1)
         # projection term applies to ACTIVE observations only — for rejected
@@ -409,8 +411,7 @@ def run_differential_correction(
     if cfg.precision == "mixed" and not cfg.propagator.nbody:
         # one full-f64 linearization at the converged elements: refreshes the
         # covariance, normal matrix, residuals, and normalised RMS that were
-        # accumulated with f32 Jacobians (elements themselves are already at
-        # the f64 fixed point — not advanced here)
+        # accumulated with f32 Jacobians (elements are not advanced here)
         res = single_iteration(
             st.elements, epoch, st.selection, obs, free, cfg.propagator, ephem,
             kepler_warm=(

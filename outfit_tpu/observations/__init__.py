@@ -12,7 +12,7 @@ correction (SURVEY 2.12).  This package re-provides that surface:
   RMS correction,
 * :mod:`debias` — star-catalog astrometric debiasing from the published
   Eggl et al. (2020) HEALPix tables (``$OUTFIT_DEBIAS``),
-* :mod:`dataset` — the ObsDataset container (struct-of-arrays, TPU-ready).
+* :mod:`dataset` — the ObsDataset container (struct-of-arrays, device-ready).
 """
 
 from outfit_tpu.observations.dataset import ObsDataset, Observation  # noqa: F401

@@ -6,7 +6,7 @@ Parity surface (photom's ObsDataset, SURVEY 2.12): ``from_mpc_80_col_files``,
 ``iter_traj_id``, ``get_observation``, ``get_observer``, ``len_trajectory``,
 ``materialize_trajectory``.
 
-TPU-first design: struct-of-arrays (numpy, host-side) with integer indices
+Batch-first design: struct-of-arrays (numpy, host-side) with integer indices
 into trajectory-id and observer tables — directly convertible into the
 padded device arrays the batched kernels consume.
 """

@@ -40,7 +40,7 @@ at a local copy (the loader never fetches).  The synthetic round-trip
 test (tests/test_observations.py) exercises the full path hermetically;
 a self-skipping test validates a real table when the env var is set.
 
-TPU note: this is host-side dataset preparation (pure numpy, runs once
+Device note: this is host-side dataset preparation (pure numpy, runs once
 per dataset before dispatch); the kernels consume the resulting bias
 columns as device arrays (lsq/iteration.py residuals).
 """

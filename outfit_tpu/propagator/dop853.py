@@ -1,8 +1,7 @@
 """Batched adaptive DOP853 integrator (Dormand-Prince 8(5,3)).
 
 The reference delegates to the Rust ``differential-equations`` crate
-(``nbody.rs:505-523``); here the integrator is owned (SURVEY 2.11 "TPU
-note"): a lane-batched, masked, adaptive-step explicit RK using Hairer's
+(``nbody.rs:505-523``); here the integrator is owned (SURVEY 2.11): a lane-batched, masked, adaptive-step explicit RK using Hairer's
 DOP853 coefficients (taken verbatim from scipy's published tables — the
 standard public data), with scipy's 5th/3rd-order combined error estimate
 and standard step-size controller.

@@ -100,8 +100,8 @@ def _acceleration_and_gradient(r, pert_pos, gm):
     dn = jnp.sqrt(d2)
     dm3 = 1.0 / (d2 * dn)
     # contractions over the (small) perturber axis are broadcast-multiply +
-    # sum, not einsum — tiny-dim dot_generals hit the emulated-f64 MXU path
-    # (~100x cost; see utils.linalg.matvec_small)
+    # sum, not einsum — tiny-dim dot_generals lower to padded matrix-unit
+    # products (see utils.linalg.matvec_small)
     acc_direct = -jnp.sum((gm * dm3)[..., None] * d, axis=-2)
 
     rp2 = jnp.sum(pert_pos * pert_pos, axis=-1)
@@ -165,7 +165,7 @@ def propagate_nbody(
         acc, grad = _acceleration_and_gradient(r, pp, gm)
         # A = [[0, I], [grad, 0]] exploited structurally: dPhi = A Phi means
         # rows 0-2 of dPhi are Phi rows 3-5, rows 3-5 are grad @ Phi[0:3]
-        # (multiply+sum, not einsum — MXU dot_general pathology, see above)
+        # (multiply+sum, not einsum — see above)
         dphi_bot = jnp.sum(
             grad[..., :, :, None] * phi[..., None, 0:3, :], axis=-2
         )

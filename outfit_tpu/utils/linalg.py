@@ -1,11 +1,11 @@
-"""Small fixed-size linear algebra, unrolled for TPU portability.
+"""Small fixed-size linear algebra, unrolled as plain batched arithmetic.
 
 The reference inverts 6x6 normal matrices with nalgebra Cholesky + QR
-fallback (``least_square.rs:329-341``).  ``jnp.linalg.inv`` does not lower
-through the TPU x64-emulation pipeline, so the Cholesky factorization,
-triangular solves, and the SPD inverse are unrolled here as plain batched
-arithmetic (6x6 is small enough that unrolling beats any LAPACK call
-anyway).
+fallback (``least_square.rs:329-341``).  Here the Cholesky factorization,
+triangular solves, and the SPD inverse are unrolled as elementwise batched
+arithmetic that lowers on every backend, with a per-lane ``ok`` flag
+instead of an exception (whether ``jnp.linalg`` is as fast on the GPU is
+an open question, ROADMAP C6).
 
 The QR fallback is a DELIBERATE deviation, kept out after measurement.
 Normal matrices are sums of outer products accumulated in f64, hence PSD by
@@ -95,14 +95,13 @@ def cholesky_inverse6(a):
 
 
 # ---------------------------------------------------------------------------
-# Tiny-contraction helpers (VPU elementwise + reduce, never MXU dot_general)
+# Tiny-contraction helpers (elementwise multiply + reduce, never dot_general)
 # ---------------------------------------------------------------------------
-# XLA lowers batched einsums with small contraction dims (3 or 6) to MXU
-# matmuls; under f64 emulation (and "highest" f32 matmul precision) those
-# cost ~100x the equivalent broadcast-multiply + sum at orbit-determination
-# batch shapes (measured: tools/body_cost.py — a single (2048,12)-batched
-# 6-dim normal-equation einsum dominated the whole LSQ iteration at ~20 ms).
-# Every hot-path contraction goes through these instead.
+# XLA lowers batched einsums with small contraction dims (3 or 6) to
+# matrix-unit dot_generals padded to the unit's tile; at orbit-determination
+# batch shapes a broadcast-multiply + sum fuses with its neighbours instead.
+# Every hot-path contraction goes through these (whether the rule pays on
+# the GPU is ROADMAP C6).
 
 
 def matvec_small(m, v):
@@ -118,7 +117,7 @@ def rotate3(rot, v):
 def matmul_small(a, b):
     """(..., i, k) @ (..., k, j) -> (..., i, j) via multiply + reduce.
 
-    For tiny inner dims (3x3 rotation chains): `@` lowers to an MXU
-    dot_general that pads the contraction to the tile size — ~100x the VPU
-    cost under f64 emulation (see module note)."""
+    For tiny inner dims (3x3 rotation chains): `@` lowers to a
+    dot_general that pads the contraction to the tile size (see module
+    note)."""
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)

@@ -165,10 +165,10 @@ class TestTwoBody:
         assert float(cf) == pytest.approx(float(np.cos(2.0450042417470673)), abs=5e-15)
 
     def test_residual_acceptance_on_step_stall(self):
-        """Regression (TPU emulated f64): a lane whose Newton STEP stalls
-        just above 100*eps while the residual is already at rounding level
-        must be flagged converged — the step-only criterion misfired on
-        ~7% of emulated-f64 solves per propagation, which the inf-gated RMS
+        """Regression (f64 without exact rounding): a lane whose Newton STEP
+        stalls just above 100*eps while the residual is already at rounding
+        level must be flagged converged — the step-only criterion misfired
+        on ~7% of such solves per propagation, which the inf-gated RMS
         scoring compounded into NoViableOrbit for ~45% of trajectories.
         Simulated deterministically: a warm start 6e-13 off the root with a
         1-iteration budget (step test can't fire; |res| ~ 6e-13 <= 1e-12

@@ -333,27 +333,51 @@ class TestHorizonRoundTrip:
         np.testing.assert_allclose(np.asarray(v2), np.asarray(v1), atol=5e-11)
 
 
-class TestPallasKernel:
-    def test_matches_xla_path_interpret(self, eph):
-        """The Pallas gather+dot kernel (interpret mode) must match the XLA
-        interpolation to machine precision."""
-        from outfit_tpu.ephem.pallas_kernel import interpolate_body_pallas
+def _clenshaw_reference(table, t):
+    """NumPy evaluation of ``interpolate_body`` by Clenshaw recurrences:
+    the same granule choice (clamped at the coverage ends) and scaled
+    time, summed in the Chebyshev basis for positions and in the
+    second-kind basis (T_k' = k U_{k-1}) for velocities."""
+    c = np.asarray(table.coeffs)  # (n_gran, 3, n)
+    n_gran, _, n = c.shape
+    x = (np.asarray(t) - table.t0) / table.granule_days
+    idx = np.clip(np.floor(x).astype(np.int64), 0, n_gran - 1)
+    tau = (2.0 * (x - idx) - 1.0)[:, None]
+    ci = c[idx]  # (Q, 3, n)
+    b1 = b2 = np.zeros(ci.shape[:2])
+    for k in range(n - 1, 0, -1):
+        b1, b2 = ci[..., k] + 2.0 * tau * b1 - b2, b1
+    pos = ci[..., 0] + tau * b1 - b2
+    a = ci[..., 1:] * np.arange(1, n)  # U-series coefficients
+    b1 = b2 = np.zeros(ci.shape[:2])
+    for k in range(n - 2, -1, -1):
+        b1, b2 = a[..., k] + 2.0 * tau * b1 - b2, b1
+    return pos, b1 * (2.0 / table.granule_days)
 
-        tb = eph.tables[Body.EMB]
-        t = jnp.linspace(56010.0, 57990.0, 300)
-        p0, v0 = interpolate_body(tb, t)
-        p1, v1 = interpolate_body_pallas(tb, t, interpret=True)
-        np.testing.assert_allclose(np.asarray(p1), np.asarray(p0), atol=1e-15)
-        np.testing.assert_allclose(np.asarray(v1), np.asarray(v0), atol=1e-16)
 
-    def test_non_tile_aligned_batch(self, eph):
-        from outfit_tpu.ephem.pallas_kernel import interpolate_body_pallas
+class TestInterpolateBody:
+    """``interpolate_body`` (one gather + one basis contraction per query)
+    against an independent NumPy Clenshaw evaluation of the same table."""
 
+    def test_batch_not_multiple_of_128(self, eph):
         tb = eph.tables[Body.MOON]
-        t = jnp.linspace(56010.0, 56100.0, 37)  # not a multiple of 128
-        p0, _ = interpolate_body(tb, t)
-        p1, _ = interpolate_body_pallas(tb, t, interpret=True)
-        np.testing.assert_allclose(np.asarray(p1), np.asarray(p0), atol=1e-15)
+        t = np.random.default_rng(0).uniform(56010.0, 57990.0, 301)
+        p, v = interpolate_body(tb, jnp.asarray(t))
+        p0, v0 = _clenshaw_reference(tb, t)
+        np.testing.assert_allclose(np.asarray(p), p0, rtol=0, atol=1e-14)
+        np.testing.assert_allclose(np.asarray(v), v0, rtol=0, atol=1e-14)
+
+    def test_granule_boundaries(self, eph):
+        tb = eph.tables[Body.EMB]
+        n_gran = tb.coeffs.shape[0]
+        edges = tb.t0 + tb.granule_days * np.arange(n_gran + 1)
+        # each boundary, a hair either side of it, and both coverage ends
+        # (the last granule evaluates the end of coverage at tau = 1)
+        t = np.concatenate([edges, edges[1:-1] - 1e-7, edges[1:-1] + 1e-7])
+        p, v = interpolate_body(tb, jnp.asarray(t))
+        p0, v0 = _clenshaw_reference(tb, t)
+        np.testing.assert_allclose(np.asarray(p), p0, rtol=0, atol=1e-14)
+        np.testing.assert_allclose(np.asarray(v), v0, rtol=0, atol=1e-14)
 
 
 class TestCrossFormatConsistency:

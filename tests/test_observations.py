@@ -305,6 +305,27 @@ class TestObserverCache:
                 atol=1e-12,
             )
 
+    def test_cache_bitwise_under_composition(self, eph):
+        """An observation's cached observer state depends on its own epoch
+        only: the frame table sits on an absolute granule grid, so adding
+        other trajectories (which widens the dataset's span) leaves it
+        bitwise unchanged."""
+        ds_a = ObsDataset.from_mpc_80_col(f"{DATA}/2015AB.obs")
+        ds_ab = ObsDataset.from_mpc_80_col_files(
+            [f"{DATA}/8467.obs", f"{DATA}/2015AB.obs"]
+        )
+        assert np.ptp(ds_ab.mjd_tt) > np.ptp(ds_a.mjd_tt)
+        ca = ObserverCache.build(ds_a, eph)
+        cab = ObserverCache.build(ds_ab, eph)
+        for tid in ds_a.iter_traj_id():
+            ia = ds_a.trajectory_obs_indices(tid)
+            ib = ds_ab.trajectory_obs_indices(tid)
+            for f in ("geo_pos_ecl", "geo_vel_ecl", "helio_pos_equ"):
+                np.testing.assert_array_equal(
+                    np.asarray(getattr(ca, f))[ia],
+                    np.asarray(getattr(cab, f))[ib], err_msg=f,
+                )
+
     def test_geocenter_observer_matches_earth(self, eph):
         ds = ObsDataset()
         ds.push_observation("G", 57000.0, 0.0, 0.0, RADSEC, RADSEC, Observer.geocenter())

@@ -1,4 +1,6 @@
-"""Unrolled linear algebra utilities."""
+"""Unrolled linear algebra utilities, small surfaces and the compile cache."""
+
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -271,3 +273,44 @@ class TestPackForFetch:
         out = unpack_fetched(jax.device_get(packed), spec)
         assert out[0].shape == (0, 3)
         np.testing.assert_array_equal(out[1], np.ones(2))
+
+
+class TestCompileCache:
+    """utils/compile_cache.py: $JAX_COMPILATION_CACHE_DIR is used exactly
+    when set; otherwise the cache sits at a fixed path in the checkout."""
+
+    _PROBE = (
+        "import jax; from outfit_tpu.utils.compile_cache import "
+        "enable_compile_cache as e; d = e(); "
+        "print(d); print(jax.config.jax_compilation_cache_dir)"
+    )
+
+    def _run(self, env_update, drop=()):
+        import subprocess
+        import sys
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = {k: v for k, v in os.environ.items() if k not in drop}
+        env.update(env_update, JAX_PLATFORMS="cpu")
+        p = subprocess.run(
+            [sys.executable, "-c", self._PROBE], env=env, cwd=repo,
+            capture_output=True, text=True, timeout=120,
+        )
+        assert p.returncode == 0, p.stderr[-2000:]
+        returned, configured = p.stdout.split()[-2:]
+        assert returned == configured
+        return repo, returned
+
+    def test_env_var_is_used_exactly(self, tmp_path):
+        want = str(tmp_path / "given" / "cache")
+        _, got = self._run({"JAX_COMPILATION_CACHE_DIR": want})
+        assert got == want
+        assert os.path.isdir(want)
+        assert os.listdir(tmp_path / "given") == ["cache"]
+
+    def test_default_is_fixed_path_in_checkout(self):
+        drop = ("JAX_COMPILATION_CACHE_DIR",)
+        repo, a = self._run({}, drop)
+        _, b = self._run({}, drop)
+        assert a == b
+        assert a.startswith(os.path.join(repo, ".jax_cache") + os.sep)
